@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""BASELINE config 5 on hardware: the full multi-resolution pipeline.
+"""BASELINE config 5 on the device: the full multi-resolution pipeline.
 
 One set of synthetic chr21-scale contacts drawn at 5Kb and aggregated to
 10Kb/25Kb (hicpeaks_tpu.io.synth.synthesize_chrom_multires — genuinely
@@ -12,54 +12,38 @@ matches), then:
 
 mirroring the reference's multi-resolution workflow
 (scripts/combine-resolutions:51-71, README.rst:233-256).  Records
-per-stage wall-clock + peak counts to benchmarks/MULTIRES_r04.json.
+per-stage wall-clock + peak counts to benchmarks/MULTIRES.json
+(gitignored; MULTIRES_coldcache.json for a run that found the compile
+cache empty).  Needs h5py (cooler files) and matplotlib (APA plot).
 
-Env knobs: MR_CPU=1 (smoke mode), MR_FINE_BINS, MR_TIMEOUT, MR_BACKEND.
+Env knobs: MR_FINE_BINS.
 """
+import glob
 import json
 import os
 import sys
+import tempfile
 import time
 
-import os
-import sys
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-OUT_PATH = os.path.join(HERE, 'MULTIRES_r05.json')  # _coldcache suffix for the cold leg
+OUT_PATH = os.path.join(HERE, 'MULTIRES.json')
 
 
 def log(msg):
     print(f'[multires] {msg}', file=sys.stderr, flush=True)
 
 
-def _watchdog(seconds):
-    import signal
-
-    def fire(*_):
-        log(f'WATCHDOG after {seconds}s')
-        os._exit(2)
-
-    signal.signal(signal.SIGALRM, fire)
-    signal.alarm(seconds)
-
-
 def main():
     t_all = time.time()
-    _watchdog(int(os.environ.get('MR_TIMEOUT', 3000)))
-    # persistent compile cache (round 5: re-enabled on the remote
-    # backend, cli/common.enable_compilation_cache)
     import jax
-    import glob
     from hicpeaks_tpu.cli.common import enable_compilation_cache
-    enable_compilation_cache()
-    _cdir = os.environ.get('JAX_COMPILATION_CACHE_DIR') or os.path.join(
-        os.path.expanduser('~'), '.cache', 'hicpeaks_tpu', 'jax_cache')
-    cache_state = 'warm' if glob.glob(os.path.join(_cdir, '*')) else 'cold'
-    if os.environ.get('MR_CPU') == '1':
-        jax.config.update('jax_platforms', 'cpu')
+    cdir = enable_compilation_cache()
+    cache_state = 'warm' if glob.glob(os.path.join(cdir, '*')) else 'cold'
+    tmp = tempfile.mkdtemp(prefix='multires_')
 
     from hicpeaks_tpu import api
     from hicpeaks_tpu.cli import apa, combine
@@ -70,7 +54,6 @@ def main():
     from hicpeaks_tpu.io.synth import synthesize_chrom_multires
 
     log(f'devices: {jax.devices()}')
-    backend = os.environ.get('MR_BACKEND', 'auto')
     fine_bins = int(os.environ.get('MR_FINE_BINS', 9340))  # chr21 @5Kb
     fine_res = 5000
     resolutions = (5000, 10000, 25000)
@@ -81,9 +64,7 @@ def main():
         fine_bins, fine_res=fine_res, resolutions=resolutions,
         seed=21, depth=12.0, n_loops=300, decay=0.75,
         loop_strength=6.0, max_loop_span_bins=380)
-    path = '/tmp/multires.cool'
-    if os.path.exists(path):
-        os.remove(path)
+    path = os.path.join(tmp, 'multires.cool')
     contacts = 0
     cmax = 0
     for res in resolutions:
@@ -105,7 +86,7 @@ def main():
     stages = {}
     bedpes = []
     n_peaks = {}
-    # ONE executable set for all three resolutions (round-4 verdict #5):
+    # ONE executable set for all three resolutions:
     # d_hi and L are traced operands, so bucketing the band ROWS to the
     # finest resolution's num, the lanes to its Lp, and the o_cap to the
     # global max count makes every per-resolution static signature
@@ -119,12 +100,11 @@ def main():
                             maxapart=maxapart)
         t0 = time.time()
         tables = api.call_hiccups(f'{path}::{res}', cfg, chroms=['#'],
-                                  scan_backend=backend,
                                   shape_bucket=lane_bucket,
                                   row_bucket=row_bucket,
                                   max_count_floor=cmax)
         dt = time.time() - t0
-        out = f'/tmp/multires-{res}.bedpe'
+        out = os.path.join(tmp, f'multires-{res}.bedpe')
         with open(out, 'w') as fh:
             for label, table in tables.items():
                 write_hiccups_bedpe(fh, label, res, table)
@@ -134,31 +114,31 @@ def main():
         log(f'hiccups @{res}: {n_peaks[res]} peaks in {dt:.1f}s')
 
     t0 = time.time()
-    rc = combine.main(['-O', '/tmp/multires-combined.bedpe', '-p', *bedpes,
+    combined_path = os.path.join(tmp, 'multires-combined.bedpe')
+    rc = combine.main(['-O', combined_path, '-p', *bedpes,
                        '-R', *[str(r) for r in resolutions],
                        '--max-res', str(max(resolutions)), '-S', '0'])
     assert rc == 0
     stages['combine_s'] = round(time.time() - t0, 2)
-    combined = [l for l in open('/tmp/multires-combined.bedpe')
-                if l.strip()]
+    combined = [l for l in open(combined_path) if l.strip()]
     log(f'combined: {len(combined)} peaks in {stages["combine_s"]}s')
 
     t0 = time.time()
-    rc = apa.main(['-O', '/tmp/multires-apa.png', '-p', f'{path}::10000',
-                   '-I', '/tmp/multires-combined.bedpe', '-S', '0',
+    rc = apa.main(['-O', os.path.join(tmp, 'multires-apa.png'),
+                   '-p', f'{path}::10000', '-I', combined_path, '-S', '0',
                    '--skip-rows', '0'])
     assert rc == 0
     stages['apa_s'] = round(time.time() - t0, 1)
     log(f'APA done in {stages["apa_s"]}s')
 
     result = {
-        'compile_cache': cache_state + ' (persistent XLA cache; the cold '
-                         'leg is the first-ever run paying every remote '
-                         'compile stall, the warm leg any later process)',
+        'compile_cache': cache_state,
+        'device': {'platform': jax.devices()[0].platform,
+                   'kind': jax.devices()[0].device_kind,
+                   'count': len(jax.devices())},
         'config': {'fine_bins': fine_bins, 'resolutions': list(resolutions),
                    'chrom': chrom, 'planted_loops': len(loops),
-                   'contacts_fine': int(per_res[fine_res][2].sum()),
-                   'backend': backend},
+                   'contacts_fine': int(per_res[fine_res][2].sum())},
         'synth_s': round(t_synth, 1),
         'peaks_per_res': {str(k): v for k, v in n_peaks.items()},
         'combined_peaks': len(combined),
@@ -171,7 +151,6 @@ def main():
         json.dump(result, fh, indent=1)
     log(f'wrote {out_path}')
     print(json.dumps(result))
-    os._exit(0)
 
 
 if __name__ == '__main__':

@@ -1,17 +1,16 @@
-"""hicpeaks-tpu: a TPU-native Hi-C loop-calling engine.
+"""hicpeaks-tpu: an accelerator-resident Hi-C loop-calling engine on JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
+A from-scratch JAX/XLA re-design of the capabilities of
 XiaoTaoWang/HiCPeaks (reference layout: hicpeaks/callers.py,
 hicpeaks/utilities.py, hicpeaks/apa.py and six CLI scripts).
 
-Architecture (TPU-first, not a port):
+Architecture (device-first, not a port):
   * Contact matrices live as dense *diagonal-band tensors* ``[num_diags, L]``
-    in HBM instead of scipy sparse matrices.
+    in device memory instead of scipy sparse matrices.
   * The HiCCUPS donut / lower-left background expectations
     (reference ``callers.py:44-362``) are computed by a vectorized
     widening scan of separable region sums (shift+add stencils that XLA
-    fuses, plus a fused Pallas kernel backend) instead of O(w^2) sparse
-    shifted-diagonal accumulation.
+    fuses) instead of O(w^2) sparse shifted-diagonal accumulation.
   * Poisson survival p-values, lambda-chunking and Benjamini-Hochberg
     run on device; greedy clustering of the (small) candidate set runs
     on the controller in NumPy.

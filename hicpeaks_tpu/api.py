@@ -2,7 +2,7 @@
 
 The reference fans chromosomes out over a multiprocess pool
 (scripts/pyHICCUPS:192-198); here chromosomes stream through the device
-sequentially (each already saturating the chip — or a device mesh with
+sequentially (each one device program — or a device mesh with
 ``mesh=``), with:
 
 * per-chromosome durable checkpoints (JSON peak tables) so a failed run
@@ -74,7 +74,7 @@ def _selected_chroms(clr: CoolerLite, chroms):
     return out
 
 
-def _run(kind, cooler_uri, cfg, chroms, mesh, scan_backend, checkpoint_dir,
+def _run(kind, cooler_uri, cfg, chroms, mesh, checkpoint_dir,
          dtype, profile_dir, shape_bucket=4096, max_retries=1,
          bh_backend='auto', check=False, row_bucket=8, max_count_floor=None):
     import jax
@@ -149,18 +149,14 @@ def _run(kind, cooler_uri, cfg, chroms, mesh, scan_backend, checkpoint_dir,
                     # o_cap must merely be >= the true max count), letting
                     # multi-resolution runs share one scorer executable
                     bands.max_count = max(bands.max_count, max_count_floor)
+                if mesh is None:
+                    # issue the host->device transfers now so they overlap
+                    # the previous chromosome's device compute
+                    # (engine._prep_chrom picks them up from bands._staged)
+                    engine.stage_chrom_arrays(bands)
             except BaseException as exc:   # re-raised on the consumer side
                 band_q.put((key, None, time.perf_counter() - t0, exc))
                 return
-            if mesh is None:
-                # issue the host->device transfers now so they overlap the
-                # previous chromosome's device compute (engine._prep_chrom
-                # picks them up from bands._staged)
-                try:
-                    engine.stage_chrom_arrays(bands)
-                except Exception:
-                    log.exception('prefetch transfer failed; the consumer '
-                                  'will transfer synchronously')
             band_q.put((key, bands, time.perf_counter() - t0, None))
 
     def _next_global(key):
@@ -200,7 +196,6 @@ def _run(kind, cooler_uri, cfg, chroms, mesh, scan_backend, checkpoint_dir,
             while True:
                 try:
                     table = caller(bands, cfg, mesh=mesh,
-                                   scan_backend=scan_backend,
                                    bh_backend=bh_backend, check=check)
                     break
                 except Exception:
@@ -240,7 +235,7 @@ def _run(kind, cooler_uri, cfg, chroms, mesh, scan_backend, checkpoint_dir,
 
 
 def call_hiccups(cooler_uri, cfg: HiccupsConfig = None, chroms=('#', 'X'),
-                 mesh=None, scan_backend='auto', checkpoint_dir=None,
+                 mesh=None, checkpoint_dir=None,
                  dtype=np.float32, profile_dir=None, shape_bucket=4096,
                  bh_backend='auto', check=False, row_bucket=8,
                  max_count_floor=None):
@@ -251,20 +246,20 @@ def call_hiccups(cooler_uri, cfg: HiccupsConfig = None, chroms=('#', 'X'),
     set (d_hi and L are traced operands; a multi-resolution pipeline
     passes the max row count / max count over its resolutions)."""
     return _run('hiccups', cooler_uri, cfg or HiccupsConfig(), chroms, mesh,
-                scan_backend, checkpoint_dir, dtype, profile_dir,
+                checkpoint_dir, dtype, profile_dir,
                 shape_bucket=shape_bucket, bh_backend=bh_backend,
                 check=check, row_bucket=row_bucket,
                 max_count_floor=max_count_floor)
 
 
 def call_bhfdr(cooler_uri, cfg: BHFDRConfig = None, chroms=('#', 'X'),
-               mesh=None, scan_backend='auto', checkpoint_dir=None,
+               mesh=None, checkpoint_dir=None,
                dtype=np.float32, profile_dir=None, shape_bucket=4096,
                bh_backend='auto', check=False, row_bucket=8,
                max_count_floor=None):
     """-> {chrom_label: {(x_bp, y_bp): 7-tuple}} (see engine.bhfdr_chrom)."""
     return _run('bhfdr', cooler_uri, cfg or BHFDRConfig(), chroms, mesh,
-                scan_backend, checkpoint_dir, dtype, profile_dir,
+                checkpoint_dir, dtype, profile_dir,
                 shape_bucket=shape_bucket, bh_backend=bh_backend,
                 check=check, row_bucket=row_bucket,
                 max_count_floor=max_count_floor)

@@ -122,7 +122,8 @@ def main(argv=None):
 
         if args.device:
             # batched device gather + normalization (jnp reduction order /
-            # f32 on TPU: tolerance-level, not pixel-exact, parity)
+            # f32 on an accelerator: tolerance-level, not pixel-exact,
+            # parity)
             import jax.numpy as jnp
 
             from ..ops.apa_ops import apa_windows

@@ -14,7 +14,7 @@ from .common import setup_logging, echo_arguments
 def main(argv=None):
     parser = argparse.ArgumentParser(
         description='Generate cooler from TXT/NPZ Hi-C data and perform '
-                    'ICE (TPU-accelerated).',
+                    'ICE (JAX-accelerated).',
         formatter_class=argparse.ArgumentDefaultsHelpFormatter)
     parser.add_argument('-v', '--version', action='version',
                         version=' '.join(['%(prog)s', __version__]))

@@ -4,7 +4,7 @@ Semantic re-implementation of the reference post-processing
 (``find_anchors``/``_cluster_core``/``local_clustering``,
 hicpeaks/callers.py:593-727).  Peak candidate sets are small (1e2-1e4),
 so this intentionally stays on the host in NumPy/SciPy — per SURVEY §2.11
-it is not worth TPU time.  Behavioural quirks of the reference that affect
+it is not worth device time.  Behavioural quirks of the reference that affect
 output and are deliberately preserved:
 
 * the cluster seed participates twice in every centroid mean (the seed is

@@ -22,7 +22,7 @@ to quadrant cells, and the raw ``Reads`` matrix (freeze control) only ever
 receives fresh annuli at min(pw) entries (callers.py:197-198), so it stays
 drift-free: Reads(w) = quadrant rings (p0, w].
 
-These events are what the TPU scan executes; ``tests/test_scan.py`` checks
+These events are what the device ring scan executes; ``tests/test_scan.py`` checks
 the model against the oracle's literal branch replay.
 """
 from __future__ import annotations

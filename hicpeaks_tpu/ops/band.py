@@ -1,6 +1,6 @@
 """Diagonal-band tensor construction.
 
-The TPU engine's core data structure replaces the reference's per-diagonal
+The device engine's core data structure replaces the reference's per-diagonal
 scipy sparse matrices (scripts/pyHICCUPS:146-159) with dense band tensors
 ``band[d, x] = M[x, x + d]`` of shape [num_diags, L]:
 
@@ -141,7 +141,8 @@ def build_bands(bin1, bin2, count, weights, L, num, ww_min, res, chrom='',
     """Scatter upper-triangle pixels into a zero-padded raw band tensor
     and derive the per-diagonal/per-bin vectors from the sparse arrays.
 
-    Shapes are padded to TPU-friendly multiples; padding is semantically
+    Shapes are padded to multiples of ``lane_pad``/``sublane_pad`` (so
+    chromosomes share compiled programs); padding is semantically
     transparent because all engine reads treat out-of-band positions as
     zero, exactly like the reference's zero-extended diagonals
     (callers.py:50-64).

@@ -1,8 +1,8 @@
 """ctypes bridge to the native band builder (native/bandbuild.cpp).
 
 One threaded C++ pass replaces the numpy fancy-index copies + bincounts
-of ops/band.build_bands at genome scale (the dominant host cost in
-benchmarks/STAGE_PROFILE_r02.json).  ``band_build2`` scatters through a
+of ops/band.build_bands at genome scale (the dominant host cost of
+band building).  ``band_build2`` scatters through a
 transposed staging buffer (cache-friendly for the cooler's b1-sorted
 pixel stream) and can skip the COO output copies entirely for the
 production path.  Falls back to None (numpy path) when the shared

@@ -1,6 +1,6 @@
 """Float64 host recomputation of per-pixel statistics for compacted pixels.
 
-The device pipeline is float32 (TPU-native); the reference is float64
+The device pipeline is float32; the reference is float64
 end-to-end.  After round 3's integer-histogram completion, the one
 remaining f32 leak in the emitted statistics was the expected value ``E``
 itself: the captured background sums (bSV, bEV) are f32 ring

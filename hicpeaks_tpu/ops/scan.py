@@ -63,9 +63,8 @@ class _RingState:
     so its K-side accumulators (Vx, Wx — 6 shifted adds per advance) are
     skipped entirely when 'K' is absent."""
 
-    def __init__(self, band, shift_fn=None, kinds=('K', 'Q')):
+    def __init__(self, band, kinds=('K', 'Q')):
         self.band = band
-        self.shift = shift_fn or shift2
         z = jnp.zeros_like(band)
         self.Vx, self.Wx, self.Vn, self.Wq = z, z, z, z
         self.need_K = 'K' in kinds
@@ -75,21 +74,20 @@ class _RingState:
     def advance(self):
         r = self.r + 1
         band = self.band
-        shift2_ = self.shift
-        neg = shift2_(band, -r, 0)
+        neg = shift2(band, -r, 0)
         if self.need_K:
-            self.Vx = self.Vx + shift2_(band, r, 0) + neg
+            self.Vx = self.Vx + shift2(band, r, 0) + neg
         if self.need_Q:
             self.Vn = self.Vn + neg
         # ring sums use Wx/Wq at r-1 (pre-update)
         if self.need_K:
-            self._ringK = (shift2_(self.Vx, -r, r) + shift2_(self.Vx, r, -r)
-                           + shift2_(self.Wx, r, 0) + shift2_(self.Wx, -r, 0))
+            self._ringK = (shift2(self.Vx, -r, r) + shift2(self.Vx, r, -r)
+                           + shift2(self.Wx, r, 0) + shift2(self.Wx, -r, 0))
         if self.need_Q:
-            self._ringQ = shift2_(self.Vn, -r, r) + shift2_(self.Wq, -r, 0)
-        anti = shift2_(band, -r, r)
+            self._ringQ = shift2(self.Vn, -r, r) + shift2(self.Wq, -r, 0)
+        anti = shift2(band, -r, r)
         if self.need_K:
-            self.Wx = self.Wx + anti + shift2_(band, r, -r)
+            self.Wx = self.Wx + anti + shift2(band, r, -r)
         if self.need_Q:
             self.Wq = self.Wq + anti
         self.r = r
@@ -108,20 +106,14 @@ class _RingProvider:
     re-add at a later entry) is cached until its final use, so peak extra
     memory stays at a handful of small-radius rings."""
 
-    def __init__(self, bands: dict, pending, shift_fn=None, crop=None):
-        """``pending``: Counter of (r, kind, which) -> total request count.
-        ``crop``: optional slab→pixel-domain slicer applied to every ring
-        before caching (the Pallas kernels accumulate pixel state at
-        interior size to shrink the VMEM live set; ring reads only ever
-        feed those interior accumulators, so crop-then-add is elementwise
-        identical to add-then-crop — bit-exact)."""
+    def __init__(self, bands: dict, pending):
+        """``pending``: Counter of (r, kind, which) -> total request count."""
         kinds = {k: {wh for (_, kk, wh) in pending if kk == k}
                  for k in bands}
-        self.states = {k: _RingState(v, shift_fn, kinds[k] or {'K', 'Q'})
+        self.states = {k: _RingState(v, kinds[k] or {'K', 'Q'})
                        for k, v in bands.items()}
         self.pending = dict(pending)
         self.cache = {}
-        self.crop = crop or (lambda a: a)
         self.r_cur = 0
 
     def get(self, r, kind, which):
@@ -133,7 +125,7 @@ class _RingProvider:
                 for wh, fn in (('K', st.ringK), ('Q', st.ringQ)):
                     ck = (self.r_cur, k, wh)
                     if self.pending.get(ck, 0) > 0:
-                        self.cache[ck] = self.crop(fn())
+                        self.cache[ck] = fn()
         assert key in self.cache, f'ring {key} requested but never planned'
         val = self.cache[key]
         self.pending[key] -= 1
@@ -166,24 +158,15 @@ def _row_margin(plan):
 
 
 def _scan_core(raw, cband, eband, cand_mask, plan, p_list, thr, allowed,
-               with_captures: bool, shift_fn=None, crop=None):
+               with_captures: bool):
     """Ring-scan math on row-pre-padded arrays (margin handling belongs to
-    the caller).  Shared between the jnp path (full band, jnp.pad) and the
-    Pallas kernel (VMEM slabs).
-
-    ``crop``: optional slab→pixel-domain slicer.  When given, ``cand_mask``
-    must ALREADY be pixel-domain and every pixel-state array (freeze
-    accumulator, captured masks, outputs) lives at pixel-domain size; ring
-    sums are cropped at the provider before accumulation.  The per-pixel
-    arithmetic and its order are identical either way (crop is a pure
-    slice), so results are bit-exact between the two modes.  Outputs are
-    uncropped in the default mode."""
+    the caller).  Returns per-entry counts as a Python list of scalars
+    (plus captured masks and outputs with captures)."""
     bands = {'m': raw}
     if with_captures:
         bands['c'] = cband
         bands['e'] = eband
-    provider = _RingProvider(bands, _ring_mentions(plan, with_captures),
-                             shift_fn, crop=crop)
+    provider = _RingProvider(bands, _ring_mentions(plan, with_captures))
 
     zero = jnp.zeros(cand_mask.shape, raw.dtype)
     accR = zero
@@ -214,8 +197,6 @@ def _scan_core(raw, cband, eband, cand_mask, plan, p_list, thr, allowed,
             vals = (accKc, accKe, accQc, accQe)
             outs[p] = [jnp.where(do_cap, v, old) for v, old in zip(vals, o)]
 
-    # counts stays a Python list of scalars: the Pallas kernel stores them
-    # to SMEM individually; jnp callers stack in _scan
     if with_captures:
         return counts, captured, outs
     return counts

@@ -5,7 +5,7 @@ The genome axis of each band tensor is sharded into column tiles across a
 1-D device mesh.  The widening ring scan is a +-maxww stencil whose line
 accumulators reach a further +-maxww, so each tile needs a ``2*maxww``
 halo from each neighbour.  The halo moves once per pass via
-``jax.lax.ppermute`` (riding ICI on real hardware, non-periodic: edge
+``jax.lax.ppermute`` (device-to-device links, non-periodic: edge
 tiles receive ppermute's zero fill, which is exactly the reference's
 zero padding at chromosome ends, callers.py:53-54).  Freeze counts are
 ``psum``-reduced so the controller's early-stop emulation sees global
@@ -20,15 +20,7 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import NamedSharding, PartitionSpec as P
 
-try:
-    from jax import shard_map as _jax_shard_map
-
-    def shard_map(f, *, mesh, in_specs, out_specs, check_rep=False):
-        return _jax_shard_map(f, mesh=mesh, in_specs=in_specs,
-                              out_specs=out_specs, check_vma=check_rep)
-except ImportError:  # older jax
-    from jax.experimental.shard_map import shard_map  # type: ignore
-
+from jax import shard_map
 from ..ops import scan as scan_ops
 
 HALO_AXIS = 'tiles'
@@ -98,7 +90,7 @@ def _ir_sharded_fn(num_p, L, ww_min, num, mesh):
     @functools.partial(shard_map, mesh=mesh,
                        in_specs=(P(None, HALO_AXIS), P(), P()),
                        out_specs=P(),
-                       check_rep=False)
+                       check_vma=False)
     def run(raw_l, w0_g, nanw_g):
         T = raw_l.shape[1]
         c0 = jax.lax.axis_index(HALO_AXIS) * T
@@ -125,113 +117,70 @@ def _ir_sharded_fn(num_p, L, ww_min, num, mesh):
     return jax.jit(run)
 
 
-def chunk_hist_sharded(O, cid, valid, S, C, hist_backend, mesh):
+def chunk_hist_sharded(O, cid, valid, S, C, mesh):
     """Exact int32 [S, C] (chunk, count) histogram of a column-sharded
-    sheet: per-shard pack + histogram (ops/score.chunk_hist — the fused
-    Pallas kernel runs fine on an already-local shard inside shard_map,
-    unlike under GSPMD) + one psum.  Order-independent, so shard-local
-    packing changes nothing; per-shard padding folds into the (0, 0)
-    trash cell like the single-device pack."""
+    sheet: per-shard pack + histogram (ops/score.chunk_hist) inside
+    shard_map + one psum.  Order-independent, so shard-local packing
+    changes nothing; per-shard padding folds into the (0, 0) trash cell
+    like the single-device pack."""
     from ..ops import score as score_ops
 
     @functools.partial(shard_map, mesh=mesh,
                        in_specs=(P(None, HALO_AXIS),) * 3,
                        out_specs=P(),
-                       check_rep=False)
+                       check_vma=False)
     def run(O_l, cid_l, valid_l):
         Oc_p, cid_p, _n = score_ops._chunk_pack(O_l, cid_l, valid_l, S, C)
-        h = score_ops.chunk_hist(Oc_p, cid_p, S, C, hist_backend)
+        h = score_ops.chunk_hist(Oc_p, cid_p, S, C)
         return jax.lax.psum(h, HALO_AXIS)
 
     return run(O, cid, valid)
 
 
-def _resolve_backend(scan_backend):
-    """'auto' -> the fused Pallas kernel on TPU, the jnp scan elsewhere
-    (mirrors engine._count_pass's off-mesh selection)."""
-    if scan_backend == 'auto':
-        return 'pallas' if jax.default_backend() == 'tpu' else 'jnp'
-    return scan_backend
-
-
 @functools.lru_cache(maxsize=64)
-def _pass_a_sharded_fn(plan, p_list, thr, mesh, backend):
-    """Build-and-jit once per (plan, mesh, backend): a fresh ``jax.jit``
-    wrapper per call re-traces AND re-compiles every invocation — the
-    round-3 weak-scaling artifact's 20-40x sharded-scan overhead at
-    n=1-2 was exactly this, not collectives."""
+def _pass_a_sharded_fn(plan, p_list, thr, mesh):
+    """Build-and-jit once per (plan, mesh): a fresh ``jax.jit`` wrapper
+    per call re-traces AND re-compiles every invocation."""
     n = mesh.devices.size
     H = 2 * max(e.w for e in plan)
 
     @functools.partial(shard_map, mesh=mesh,
                        in_specs=(P(None, HALO_AXIS), P(None, HALO_AXIS)),
                        out_specs=P(),
-                       check_rep=False)
+                       check_vma=False)
     def run(raw_l, cand_l):
         raw_e = _with_halo(raw_l, H, n)
         cand_e = _zero_halo(cand_l, H)   # halo pixels belong to neighbours
-        if backend in ('pallas', 'pallas-interpret'):
-            from ..ops.pallas_scan import scan_pass_a_pallas
-            counts = scan_pass_a_pallas(
-                raw_e, cand_e != 0, plan, p_list, thr,
-                interpret=backend == 'pallas-interpret')
-        else:
-            allowed = jnp.ones(len(plan), bool)
-            counts = scan_ops._scan(raw_e, None, None, cand_e, plan, p_list,
-                                    thr, allowed, False)
+        allowed = jnp.ones(len(plan), bool)
+        counts = scan_ops._scan(raw_e, None, None, cand_e, plan, p_list,
+                                thr, allowed, False)
         return jax.lax.psum(counts, HALO_AXIS)
 
     return jax.jit(run)
 
 
-def scan_pass_a_sharded(raw, cand_mask, plan, p_list, thr, mesh,
-                        scan_backend='auto'):
+def scan_pass_a_sharded(raw, cand_mask, plan, p_list, thr, mesh):
     """Sharded freeze-count pass; returns globally psum-reduced counts.
-
-    With a Pallas backend the fused VMEM count kernel runs on each
-    device's halo-extended local slab INSIDE shard_map (GSPMD cannot
-    partition a pallas_call, but shard_map hands the kernel an
-    already-local array — round-2 verdict weak #2: mesh runs used to
-    fall back to the ~O(plan)-pass jnp scan)."""
-    backend = _resolve_backend(scan_backend)
-    return _pass_a_sharded_fn(tuple(plan), tuple(p_list), int(thr), mesh,
-                              backend)(raw, cand_mask)
+    The ring scan runs on each device's halo-extended local slab inside
+    shard_map."""
+    return _pass_a_sharded_fn(tuple(plan), tuple(p_list), int(thr),
+                              mesh)(raw, cand_mask)
 
 
 @functools.lru_cache(maxsize=64)
-def _pass_b_sharded_fn(plan, p_list, thr, mesh, backend):
-    """Once-per-(plan, mesh, backend) jitted sharded capture pass (see
+def _pass_b_sharded_fn(plan, p_list, thr, mesh):
+    """Once-per-(plan, mesh) jitted sharded capture pass (see
     :func:`_pass_a_sharded_fn` for why the jit must be cached)."""
     n = mesh.devices.size
     H = 2 * max(e.w for e in plan)
     band_spec = P(None, HALO_AXIS)
-
-    if backend in ('pallas', 'pallas-interpret'):
-        @functools.partial(
-            shard_map, mesh=mesh,
-            in_specs=(band_spec, band_spec, band_spec, band_spec, P()),
-            out_specs={p: [band_spec] * 4 for p in p_list},
-            check_rep=False)
-        def run_pallas(raw_l, cband_l, eband_l, cand_l, allowed_l):
-            from ..ops.pallas_scan import scan_pass_b_pallas
-            raw_e = _with_halo(raw_l, H, n)
-            cband_e = _with_halo(cband_l, H, n)
-            eband_e = _with_halo(eband_l, H, n)
-            cand_e = _zero_halo(cand_l, H) != 0
-            outs = scan_pass_b_pallas(
-                raw_e, cband_e, eband_e, cand_e, allowed_l, plan, p_list,
-                thr, interpret=backend == 'pallas-interpret')
-            crop = lambda a: a[:, H:-H]
-            return {p: [crop(v) for v in o] for p, o in outs.items()}
-
-        return jax.jit(run_pallas), True
 
     @functools.partial(
         shard_map, mesh=mesh,
         in_specs=(band_spec, band_spec, band_spec, band_spec, P()),
         out_specs=(P(), {p: band_spec for p in p_list},
                    {p: [band_spec] * 4 for p in p_list}),
-        check_rep=False)
+        check_vma=False)
     def run(raw_l, cband_l, eband_l, cand_l, allowed_l):
         raw_e = _with_halo(raw_l, H, n)
         cband_e = _with_halo(cband_l, H, n)
@@ -245,20 +194,12 @@ def _pass_b_sharded_fn(plan, p_list, thr, mesh, backend):
         outs = {p: [crop(v) for v in o] for p, o in outs.items()}
         return jax.lax.psum(counts, HALO_AXIS), captured, outs
 
-    return jax.jit(run), False
+    return jax.jit(run)
 
 
 def scan_pass_b_sharded(raw, cband, eband, cand_mask, allowed, plan, p_list,
-                        thr, mesh, scan_backend='auto'):
-    """Sharded capture pass; capture tensors come back sharded along tiles.
-
-    Pallas backends run the fused capture kernel per shard (see
-    :func:`scan_pass_a_sharded`); the freeze counts then come back as
-    None — the engine's pass A already produced them."""
-    backend = _resolve_backend(scan_backend)
-    fn, is_pallas = _pass_b_sharded_fn(tuple(plan), tuple(p_list), int(thr),
-                                       mesh, backend)
-    if is_pallas:
-        outs = fn(raw, cband, eband, cand_mask, allowed)
-        return None, None, outs
-    return fn(raw, cband, eband, cand_mask, allowed)
+                        thr, mesh):
+    """Sharded capture pass; capture tensors come back sharded along
+    tiles.  Returns (counts, captured, outs) like ops/scan.scan_pass_b."""
+    return _pass_b_sharded_fn(tuple(plan), tuple(p_list), int(thr),
+                              mesh)(raw, cband, eband, cand_mask, allowed)

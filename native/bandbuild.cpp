@@ -1,12 +1,12 @@
 // bandbuild: multithreaded diagonal-band scatter + derived reductions.
 //
-// The TPU engine's per-chromosome prep (hicpeaks_tpu/ops/band.py) turns
+// The engine's per-chromosome prep (hicpeaks_tpu/ops/band.py) turns
 // sparse upper-triangle pixels into a dense [num_p, Lp] float32 band plus
 // O(L) vectors (per-diagonal balanced sums / NaN counts for the expected
 // model of scripts/pyHICCUPS:150-158, per-bin balanced column sums for
 // the gap filter of callers.py:238).  In numpy that is several boolean
 // fancy-index copies and bincounts over ~1e7 pixels — the dominant host
-// cost at genome scale (benchmarks/STAGE_PROFILE_r02*.json).  This kernel
+// cost at genome scale.  This kernel
 // does it in one threaded pass.
 //
 // C ABI for ctypes:

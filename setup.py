@@ -4,7 +4,7 @@ import hicpeaks_tpu
 setup(
     name='hicpeaks-tpu',
     version=hicpeaks_tpu.__version__,
-    description='TPU-native Hi-C loop calling (HiCCUPS / BH-FDR) on JAX',
+    description='Accelerated Hi-C loop calling (HiCCUPS / BH-FDR) on JAX',
     packages=find_packages(exclude=['tests', 'tests.*']),
     scripts=['scripts/toCooler', 'scripts/pyBHFDR', 'scripts/pyHICCUPS',
              'scripts/combine-resolutions', 'scripts/peak-plot',

@@ -2,7 +2,7 @@
 
 A control-flow-faithful NumPy re-implementation of ``hiccups()`` and
 ``bhfdr()`` (reference hicpeaks/callers.py:44-590) used as the golden
-reference for the TPU engine's tests.  Sparse shifted-diagonal arithmetic
+reference for the device engine's tests.  Sparse shifted-diagonal arithmetic
 is replaced by shifted dense-array accumulation, but every conditional of
 the reference — the limitCompute incremental add/subtract branches, the
 per-pixel freeze bookkeeping, the lambda-chunk boundaries, the gap-filter

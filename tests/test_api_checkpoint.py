@@ -59,12 +59,17 @@ def test_checkpoint_and_resume(tmp_path):
     assert fresh == first
 
 
-def test_validate_scan_backend(tmp_path):
+def test_validate_scan_backend(tmp_path, monkeypatch):
+    """Integrity check of the scan: the one-program chromosome path and
+    the multi-dispatch path (separate pass A / pass B / scorer programs,
+    the structure a mesh run uses) return identical tables."""
     uri = _two_chrom_cooler(str(tmp_path / 'v.cool'))
     cfg = BHFDRConfig(pw=1, ww=3, maxww=6, maxapart=1000000)
-    out = api.call_bhfdr(uri, cfg, chroms=['1'], dtype=np.float32,
-                         scan_backend='validate')
-    assert '1' in out
+    fused = api.call_bhfdr(uri, cfg, chroms=['1'], dtype=np.float32)
+    monkeypatch.setenv('HICPEAKS_DISABLE_FUSED', '1')
+    staged = api.call_bhfdr(uri, cfg, chroms=['1'], dtype=np.float32)
+    assert '1' in fused
+    assert staged == fused
 
 
 def test_pipelined_loader_failure_propagates(tmp_path, monkeypatch):

@@ -300,11 +300,11 @@ def test_chunk_bh_keep_batched_matches_per_background(B, sig, seed):
 
     keep_b, qtab_b, hist_b, thr_b, _okb = chunk_bh_keep_batched(
         jnp.asarray(O), jnp.asarray(cid), jnp.asarray(valid), sig, B,
-        o_cap=o_cap, hist_backend='jnp', slack=0.01)
+        o_cap=o_cap, slack=0.01)
     for b in range(B):
         keep1, qtab1, hist1, thr1, _ok1 = chunk_bh_keep(
             jnp.asarray(O[b]), jnp.asarray(cid[b]), jnp.asarray(valid[b]),
-            sig, o_cap=o_cap, hist_backend='jnp', slack=0.01)
+            sig, o_cap=o_cap, slack=0.01)
         np.testing.assert_array_equal(np.asarray(keep_b)[b],
                                       np.asarray(keep1), err_msg=f'b={b}')
         np.testing.assert_array_equal(
@@ -359,3 +359,51 @@ def test_split_histogram_matches_unsplit():
                                o_cap=o_cap, slack=0.01, hcap=4096)
     np.testing.assert_array_equal(np.asarray(b0[2]), np.asarray(b1[2]))
     np.testing.assert_array_equal(np.asarray(b0[0]), np.asarray(b1[0]))
+
+
+@pytest.mark.parametrize('n,o_cap,seed', [(5000, 256, 0), (70000, 512, 1),
+                                          (300, 131, 2)])
+def test_chunk_hist_matches_bincount(n, o_cap, seed):
+    """The (chunk, count) histogram of the packed streams equals
+    np.bincount over the combined key exactly: counts clipped at the cap,
+    invalid pixels folded into trash row 0, and the pack's zero padding
+    in the (0, 0) trash cell."""
+    from hicpeaks_tpu.ops.score import _chunk_pack, chunk_hist
+
+    rng = np.random.default_rng(seed)
+    S, C = 128, o_cap + 1
+    O = rng.poisson(9.0, n).astype(np.float32)
+    O[rng.random(n) < 0.01] = o_cap * 3.0          # clip-at-cap bucket
+    cid = rng.integers(1, S, n).astype(np.int32)
+    valid = rng.random(n) < 0.8
+    Oc_p, cid_p, _ = _chunk_pack(jnp.asarray(O), jnp.asarray(cid),
+                                 jnp.asarray(valid), S, C)
+    got = np.asarray(chunk_hist(Oc_p, cid_p, S, C))
+    key = (np.asarray(cid_p, np.int64) * C
+           + np.asarray(Oc_p, np.int64)).ravel()
+    want = np.bincount(key, minlength=S * C).reshape(S, C)
+    np.testing.assert_array_equal(got, want)
+    assert got.sum() == Oc_p.size and got[0, 0] >= Oc_p.size - n
+
+
+@pytest.mark.parametrize('sig', [0.05, 0.31])
+def test_chunk_bh_keep_matches_sort_bh(sig):
+    """chunk_bh_keep's histogram keep mask equals the sort-based rule:
+    segmented_bh over p = sf(floor(O); right edge of the pixel's lambda
+    chunk), kept where q <= sig."""
+    from hicpeaks_tpu.ops.score import (chunk_bh_keep, lambda_chunks,
+                                        poisson_sf)
+
+    rng = np.random.default_rng(23)
+    n = 40000
+    O = rng.poisson(6.0, n).astype(np.float64)
+    E = np.exp(rng.uniform(np.log(0.05), np.log(300.0), n))
+    scored = rng.random(n) < 0.9
+    cid, rv, valid = lambda_chunks(jnp.asarray(E), jnp.asarray(scored))
+    pval = jnp.where(valid, poisson_sf(jnp.asarray(O), rv), 1.0)
+    q_sort = np.asarray(segmented_bh(pval, cid, valid))
+    keep, _, _, _, _ = chunk_bh_keep(jnp.asarray(O), cid, valid, sig,
+                                     o_cap=256)
+    want = np.asarray(valid) & (q_sort <= sig)
+    assert want.sum() > 0
+    np.testing.assert_array_equal(np.asarray(keep), want)

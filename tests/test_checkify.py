@@ -41,12 +41,11 @@ def test_checkify_catches_nan_corruption():
 
 
 def test_checkify_scan_math_clean_and_poisoned():
-    """checkify sweep of the ring-scan math (round-2 verdict next-step
-    #10).  The Pallas kernels share their entire scan body with the jnp
-    path (ops/scan._scan_core), and checkify cannot thread through the
-    pallas interpreter's internal scan — so the float/index instrumentation
-    runs on the shared math, and kernel-specific OOB/DMA behavior is
-    pinned by the bit-exact adversarial sweep in test_pallas_scan."""
+    """checkify sweep of the ring-scan math (ops/scan._scan, the body of
+    both passes): float/index instrumentation on clean data leaves the
+    captures unchanged, and a NaN produced inside the scan is flagged.
+    Out-of-bounds behaviour on ragged shapes is pinned separately by
+    test_scan's NumPy-model sweep."""
     import jax.numpy as jnp
     from jax.experimental import checkify
 

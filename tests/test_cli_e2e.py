@@ -98,8 +98,8 @@ def test_peak_callers_and_postprocessing(workspace):
 
 
 def test_engine_flags_switch_backends(workspace):
-    """--scan-backend validate / --bh-backend device / --shape-bucket must be
-    selectable from the CLI (VERDICT r1 weak #5) and leave output unchanged."""
+    """--bh-backend device / --shape-bucket must be selectable from the
+    CLI and leave output unchanged."""
     root = workspace['root']
     res = workspace['res']
     uri = f'{root}/test.cool::{res}'
@@ -107,7 +107,6 @@ def test_engine_flags_switch_backends(workspace):
     rc = peakcall.hiccups_main(['-O', str(root / 'hiccups_v.bedpe'), '-p', uri,
                                 '--pw', '1', '--ww', '3', '--maxww', '8',
                                 '--maxapart', '2000000',
-                                '--scan-backend', 'validate',
                                 '--bh-backend', 'device',
                                 '--shape-bucket', '512',
                                 '--logFile', str(root / 'hv.log')])

@@ -1,4 +1,4 @@
-"""End-to-end parity: the TPU engine must reproduce the float64 oracle's
+"""End-to-end parity: the device engine must reproduce the float64 oracle's
 peak tables on synthetic data — identical loci, cluster geometry, and
 statistics to floating-point tolerance (SURVEY §7 'bit-exactness vs
 performance': loci exact, q-values tolerance-compared)."""
@@ -139,4 +139,30 @@ def test_hiccups_parity_shallow_data_frozen_w(tmp_path_factory):
     bands = bands_from_cooler(clr, '21', cfg.maxapart, cfg.maxww, 3,
                               dtype=np.float64)
     got = engine.hiccups_chrom(bands, cfg)
+    _assert_tables_match(got, want, slice(3, None))
+
+
+def test_hiccups_engine_float32_bands_matches_oracle(tmp_path):
+    """Production dtype: float32 bands through the fused one-program
+    path, statistics completed in float64 on the host, match the float64
+    oracle on a synthetic chromosome (identical loci and geometry,
+    statistics to 1e-8)."""
+    uri, _ = synthetic_cooler(str(tmp_path / 'f32.cool'), n_bins=256,
+                              res=25000, seed=13, n_loops=15, depth=60.0)
+    clr = CoolerLite(uri)
+    cfg = HiccupsConfig(pw=(1,), ww=(3,), maxww=6, maxapart=1500000,
+                        min_marginal_peaks=2, min_local_reads=16)
+    d = prepare_chrom(clr, '21', cfg.maxapart, cfg.maxww, 3)
+    want = oracle.hiccups(d['Md'], d['cMd'], d['B'], d['B'], d['IR'],
+                          d['chromLen'], d['num'], pw=[1], ww=[3], maxww=6,
+                          sig=cfg.siglevel, sumq=cfg.sumq,
+                          double_fold=cfg.double_fold,
+                          single_fold=cfg.single_fold,
+                          maxapart=cfg.maxapart, res=clr.binsize,
+                          min_marginal_peaks=2, onlyanchor=False,
+                          min_local_reads=16)
+    bands = bands_from_cooler(clr, '21', cfg.maxapart, cfg.maxww, 3,
+                              dtype=np.float32)
+    got = engine.hiccups_chrom(bands, cfg)
+    assert len(want) > 0
     _assert_tables_match(got, want, slice(3, None))

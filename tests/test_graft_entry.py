@@ -1,12 +1,15 @@
 """The driver hooks must always import, compile and run: entry() is the
 single-chip flagship step; dryrun_multichip exercises the sharded path."""
+import os
 import sys
 
 import jax
 
+_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
 
 def test_entry_compiles_and_runs():
-    sys.path.insert(0, '/root/repo')
+    sys.path.insert(0, _ROOT)
     import __graft_entry__ as g
     fn, args = g.entry()
     out = fn(*args)
@@ -19,6 +22,6 @@ def test_entry_compiles_and_runs():
 
 
 def test_dryrun_multichip_small():
-    sys.path.insert(0, '/root/repo')
+    sys.path.insert(0, _ROOT)
     import __graft_entry__ as g
     g.dryrun_multichip(2)

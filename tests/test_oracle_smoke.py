@@ -146,7 +146,7 @@ def test_multi_p_drift_matches_ring_model():
     """With multiple pw values the reference accumulation drifts (rings
     re-added on p decreases, never subtracted on p increases).  The pool
     plan's ring-multiplicity model must predict the exact state after every
-    entry — this is the contract the TPU scan is built on."""
+    entry — this is the contract the device scan is built on."""
     from hicpeaks_tpu.core.poolplan import hiccups_pool_plan
 
     pw, ww, maxww = [1, 2, 4], [3, 5, 7], 9

@@ -254,7 +254,7 @@ def test_hiccups_formatted_bedpe_matches_reference(ref, synth):
 
 
 def test_formatted_bedpe_matches_reference_f32_engine(ref, synth):
-    """The PRODUCTION dtype: engine runs on float32 bands (the TPU
+    """The PRODUCTION dtype: engine runs on float32 bands (the device
     pipeline) and the formatted bedpe must still match the float64
     reference string-for-string — this is what ops/hostexact.py buys
     (float64 host recomputation of E/Fold/ICE for the compacted pixels;

@@ -123,25 +123,18 @@ def test_sharded_ingestion_matches_host_loader(synth):
                                    np.asarray(got[k], float), rtol=1e-12)
 
 
-def test_sharded_hiccups_pallas_backend_matches_jnp(synth):
-    """The fused Pallas kernels must run UNDER the mesh (inside shard_map
-    on halo-extended local slabs — round-2 verdict weak #2) and reproduce
-    the sharded jnp scan's tables exactly.  Interpret mode stands in for
-    Mosaic on the CPU test mesh; hardware parity is covered by
-    benchmarks/hw_validate.py."""
+def test_sharded_hiccups_float32_multipair_matches_single_device(synth):
+    """Production dtype (float32 bands), multi-pair config: the 8-device
+    halo-exchange run reproduces the single-device tables."""
     clr, _ = synth
     cfg = HiccupsConfig(pw=(1, 2), ww=(3, 5), maxww=8, maxapart=2000000,
                         min_marginal_peaks=2, min_local_reads=16)
-    # float32 like production: the Pallas kernel requires one dtype across
-    # the raw/balanced/expected slabs (f64 bands make build_sheets emit a
-    # mixed f32-raw/f64-sheets set under x64)
     bands = bands_from_cooler(clr, '21', cfg.maxapart, cfg.maxww, 3,
                               dtype=np.float32)
-    mesh = make_tile_mesh(8)
-    want = engine.hiccups_chrom(bands, cfg, mesh=mesh, scan_backend='jnp')
-    got = engine.hiccups_chrom(bands, cfg, mesh=mesh,
-                               scan_backend='pallas-interpret')
-    assert set(want) == set(got)
-    for k in want:
-        np.testing.assert_allclose(np.asarray(want[k], float),
-                                   np.asarray(got[k], float), rtol=1e-12)
+    single = engine.hiccups_chrom(bands, cfg)
+    sharded = engine.hiccups_chrom(bands, cfg, mesh=make_tile_mesh(8))
+    assert len(single) > 0
+    assert set(single) == set(sharded)
+    for k in single:
+        np.testing.assert_allclose(np.asarray(single[k], float),
+                                   np.asarray(sharded[k], float), rtol=1e-12)
